@@ -1,8 +1,8 @@
 """Measured lockstep-tail experiment: difficulty-sorted vs unsorted chunks.
 
-VERDICT r2 #3: docs/SCALING.md's N-shard efficiency model leans on
-difficulty-sorted chunking to bound tail imbalance, but no recorded bench
-had sorting enabled.  This script measures the config-5 sweep's f32 bulk
+VERDICT r2 #3: the N-shard efficiency argument leans on difficulty-sorted
+chunking to bound tail imbalance, but no recorded bench had sorting
+enabled.  This script measures the config-5 sweep's f32 bulk
 phase (the lockstep-bound part; the f64 certify leg is per-instance host
 work) chunk by chunk, unsorted and pilot-sorted, and records
 
@@ -11,9 +11,10 @@ work) chunk by chunk, unsorted and pilot-sorted, and records
   * total bulk walls for both orders, with the pilot's cost included on
     the sorted side (it must amortize to win).
 
-  python bench_sorted.py [--B 102400 --chunk 512] [--out bench_results.jsonl]
+  python bench_sorted.py [--B 102400 --chunk 512] [--out FILE]
 
-One JSONL row per order + a comparison row.
+One JSON row per order + a comparison row on stdout, each with the device
+record; also appended to --out when given.  Fails without a GPU.
 """
 from __future__ import annotations
 
@@ -25,22 +26,16 @@ import time
 import jax
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/benlsip_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import jax.numpy as jnp
 import numpy as np
-
-
-def _sync(x):
-    return float(jnp.sum(x))
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", type=int, default=102400)
     ap.add_argument("--chunk", type=int, default=512)
-    ap.add_argument("--out", default="bench_results.jsonl")
+    ap.add_argument("--out", default=None, help="also append the rows to this JSONL file")
     args = ap.parse_args()
     B, chunk = args.B, args.chunk
 
@@ -52,6 +47,11 @@ def main():
     from benlsip_tpu.problems.generators import exp_fit_family
     from benlsip_tpu.solver.options import SolverOptions
 
+    from benlsip_tpu.harness.cache import enable_compile_cache
+    from benlsip_tpu.harness.devices import require_gpu
+
+    device = require_gpu()
+    enable_compile_cache()
     dev = jax.devices()[0]
     opts = SolverOptions(max_outer_iter=40, max_inner_iter=120, crit_tol=1e-2)
     bp, theta, X0 = exp_fit_family(B, d=32, seed=7, dtype=jnp.float64)
@@ -71,7 +71,7 @@ def main():
         sl0 = slice(0, chunk)
         bc = dataclasses.replace(bpp, b=bpp.b[sl0])
         Xw, _, _ = solve_batched_chunked(bc, jax.tree.map(lambda a: a[sl0], th), x0[sl0], opts, chunk=chunk)
-        _sync(Xw)
+        jax.block_until_ready(Xw)
         conv = 0
         for k in range(0, B, chunk):
             sl = slice(k, min(k + chunk, B))
@@ -80,7 +80,7 @@ def main():
             Xc, _, ic = solve_batched_chunked(
                 bc, jax.tree.map(lambda a: a[sl], th), x0[sl], opts, chunk=chunk
             )
-            _sync(Xc)
+            jax.block_until_ready(Xc)
             walls.append(time.perf_counter() - t0)
             conv += int(jnp.sum(ic.converged))
         return walls, conv
@@ -92,7 +92,7 @@ def main():
     t0 = time.perf_counter()
     pilot_opts = dataclasses.replace(opts, max_outer_iter=2, max_inner_iter=8)
     _, _, pinfo = solve_batched_chunked(bp32, theta32, X032, pilot_opts, chunk=chunk)
-    _sync(pinfo.inner_iters.astype(jnp.float32))
+    jax.block_until_ready(pinfo.inner_iters.astype(jnp.float32))
     cost = np.asarray(pinfo.inner_iters) + 1000 * (~np.asarray(pinfo.converged))
     order = np.argsort(cost, kind="stable")
     jorder = jnp.asarray(order)
@@ -114,23 +114,25 @@ def main():
             "mean_over_max": round(float(w.mean() / w.max()), 4),
         }
 
-    w = MetricsWriter(args.out)
+    w = MetricsWriter(args.out) if args.out else None
     rows = [
         {"config": "sorted-chunks", "order": "unsorted", "B": B, "chunk": chunk,
-         "converged": conv_u, **stats(walls_u), "device": str(dev)},
+         "converged": conv_u, **stats(walls_u), "device": device},
         {"config": "sorted-chunks", "order": "sorted", "B": B, "chunk": chunk,
          "converged": conv_s, "pilot_s": round(pilot_s, 3), **stats(walls_s),
-         "device": str(dev)},
+         "device": device},
         {"config": "sorted-chunks", "order": "comparison", "B": B, "chunk": chunk,
          "sorted_total_incl_pilot_s": round(sum(walls_s) + pilot_s, 3),
          "unsorted_total_s": round(sum(walls_u), 3),
          "speedup_x": round(sum(walls_u) / (sum(walls_s) + pilot_s), 3),
-         "device": str(dev)},
+         "device": device},
     ]
     for r in rows:
-        w.write(r)
+        if w:
+            w.write(r)
         print(json.dumps(r), flush=True)
-    w.close()
+    if w:
+        w.close()
 
 
 if __name__ == "__main__":

@@ -22,8 +22,9 @@ each resistant instance:
                            ill-posed (report its data and the oracle's
                            stationarity floor).
 
-Usage:  python bench_tail_diag.py [--device cpu|tpu] [--B 16384]
+Usage:  python bench_tail_diag.py [--B 16384]
 The failing instance data is printed ready to paste into a test fixture.
+Fails without a GPU.
 """
 from __future__ import annotations
 
@@ -33,8 +34,6 @@ import json
 import jax
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/benlsip_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +42,6 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", type=int, default=16384)
-    ap.add_argument("--device", default=None, help="'cpu' forces host bulk")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -51,20 +49,18 @@ def main():
     from benlsip_tpu.batch.refine import refine_f64, solve_mixed_precision
     from benlsip_tpu.batch.polish import sqp_polish
     from benlsip_tpu.batch.vmap_solve import solve_batched
+    from benlsip_tpu.harness.cache import enable_compile_cache
+    from benlsip_tpu.harness.devices import require_gpu
     from benlsip_tpu.problems.generators import exp_fit_family
     from benlsip_tpu.solver.options import SolverOptions
 
+    print(json.dumps({"device": require_gpu()}))
+    enable_compile_cache()
     B = args.B
     opts = SolverOptions(max_outer_iter=40, max_inner_iter=120)
     bp, theta, X0 = exp_fit_family(B, d=32, seed=args.seed, dtype=jnp.float64)
 
-    bulk_dev = None
-    if args.device == "cpu":
-        bulk_dev = jax.devices("cpu")[0]
-
-    X, Y, info = solve_mixed_precision(
-        bp, theta, X0, opts, bulk_device=bulk_dev
-    )
+    X, Y, info = solve_mixed_precision(bp, theta, X0, opts)
     conv = np.asarray(info.converged)
     bad = np.nonzero(~conv)[0]
     print(f"pipeline: {int(conv.sum())}/{B} certified; uncertified idx = {bad.tolist()}")

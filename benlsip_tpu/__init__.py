@@ -1,6 +1,7 @@
-"""benlsip_tpu — a TPU-native framework for constrained nonlinear least squares.
+"""benlsip_tpu — a batched, accelerator-resident framework for constrained
+nonlinear least squares.
 
-From-scratch JAX/XLA/Pallas re-design (not a port) with the capabilities of
+From-scratch JAX/XLA re-design (not a port) with the capabilities of
 the reference Julia package BEnlsip.jl (`/root/reference`): a trust-region
 augmented-Lagrangian Gauss-Newton solver (TRALCNLLS) for
 
@@ -11,12 +12,12 @@ independent instances and mesh-sharded for large blocked-Jacobian instances.
 
 Public surface: `tralcnllss` (reference-parity entry), `solve`/`Problem`
 (idiomatic entry), `SolverOptions` (the reference's hyperparameter table),
-plus the `ops` (constraint algebra), `solver`, `batch`, `dist`, `kernels`,
+plus the `ops` (constraint algebra), `solver`, `batch`, `dist`,
 `problems`, and `harness` subpackages mapped 1:1 onto SURVEY.md §2's
 component inventory.
 """
 
-from . import batch, dist, harness, kernels, ops, problems, solver
+from . import batch, dist, harness, ops, problems, solver
 from .ops.al import AlHessian, evaluate_al, first_derivatives, hv, new_point, second_derivatives, vhv
 from .ops.constraints import ActiveSet, Polyhedron, is_feasible
 from .ops.polyproject import projection_polyhedron

@@ -261,6 +261,32 @@ def kkt_cross_check_batch(
     }
 
 
+def kkt_check_blocked_hard(bp, theta, x, alpha: float = 1.5,
+                           tol: float = 5e-4) -> dict:
+    """Oracle check of a `problems.generators.blocked_hard_family` solution.
+
+    The family is r(x) = J0 ψ(x) − y with ψ(x) = x + αx³, so J(x) =
+    J0 diag(ψ'(x)); everything is rebuilt here in numpy f64 from the raw
+    data.  `tol` is the stationarity/feasibility tolerance: 5e-4 is the
+    f32 grade (≈ √eps(f32) with headroom) of an f32 blocked solve.
+    Returns `kkt_check_point`'s dict plus `active_frac`.
+    """
+    xn = np.asarray(x, np.float64)
+    J0 = np.asarray(theta["J"], np.float64)
+    y = np.asarray(theta["y"], np.float64)
+    xl = np.asarray(bp.xl, np.float64)
+    xu = np.asarray(bp.xu, np.float64)
+    r = J0 @ (xn + alpha * xn**3) - y
+    J = J0 * (1.0 + 3.0 * alpha * xn * xn)[None, :]
+    res = kkt_check_point(
+        xn, r, J, None, None,
+        np.asarray(bp.A, np.float64), np.asarray(bp.b, np.float64), xl, xu,
+        stat_tol=tol, feas_tol=tol,
+    )
+    res["active_frac"] = float(((xn - xl < 1e-6) | (xu - xn < 1e-6)).mean())
+    return res
+
+
 def kkt_check_classic_battery(options=None) -> dict:
     """Solve every classic HS/MGH battery entry (problems/classic.py) on
     host and run the independent oracle on each solution.

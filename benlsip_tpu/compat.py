@@ -3,7 +3,7 @@
 `least_squares` mirrors the call surface of
 `scipy.optimize.least_squares` (fun/x0/jac/bounds/tolerances) so
 bound-constrained NLS code written against scipy ports by changing one
-import — and gains everything underneath: jit compilation, TPU
+import — and gains everything underneath: jit compilation, accelerator
 execution, equality constraints (`A_eq`/`b_eq` and `nl_eq` extensions),
 and `jax.vmap` batchability of the returned solver core.
 

@@ -125,7 +125,9 @@ def axis_index(axis: str):
 def initialize_distributed(**kwargs) -> None:
     """Multi-host bring-up: `jax.distributed.initialize` passthrough.
 
-    On a pod each host calls this before building the global mesh; no-op
-    arguments default to the standard TPU environment discovery.
+    Each host calls this before building the global mesh.  Without
+    arguments JAX discovers the cluster from a launcher it knows (SLURM,
+    Open MPI); elsewhere pass `coordinator_address`, `num_processes` and
+    `process_id`.
     """
     jax.distributed.initialize(**kwargs)

@@ -1,7 +1,7 @@
 """Device-mesh construction and sharding helpers.
 
 The reference has no parallelism of any kind (SURVEY.md §2.5); this module
-is the scale-out surface of the TPU build.  Two mesh axes cover the two
+is the scale-out surface of the rebuild.  Two mesh axes cover the two
 execution regimes:
 
 * `batch` — data parallelism over independent NLS instances (BASELINE

@@ -28,6 +28,7 @@ from ..batch.vmap_solve import (
     poly_batch_axes,
     solve_batched,
 )
+from ..harness.steps import dispatch
 from ..ops.constraints import Polyhedron
 from ..solver.api import NLSFunctions, Problem
 from ..solver.options import SolverOptions
@@ -174,11 +175,12 @@ def _resolve_blocked_options(options: SolverOptions) -> SolverOptions:
     distributable (one psummed Gram pass, J stays local; the implicit
     refinement is collective-free, ops/qr.cholqr2i_r) and is the route
     to force when κ-grade accuracy matters in the blocked f32 bulk; it is
-    not the auto default here because its refresh still costs ~2.3× the
-    Gram GEMM (measured 39 vs 17 ms at config-4 shape) and the blocked
-    pipeline already defends conditioning with matmul_precision="highest"
-    plus the f64 certify phases — the measured config-4 wall is
-    refresh-heavy, so auto keeps the cheapest refresh.
+    not the auto default here because its refresh costs more than the
+    one Gram GEMM (three GEMM-class passes) and the blocked pipeline
+    already defends conditioning with matmul_precision="highest" plus the
+    f64 certify phases — the config-4 wall is refresh-heavy, so auto
+    keeps the cheapest refresh (chosen on the earlier accelerator; not
+    yet measured on the H100, ROADMAP Speed item 6).
     """
     import dataclasses
 
@@ -240,7 +242,7 @@ def solve_large_blocked_family(
 
     theta = jax.tree.map(place, theta)
     fns_key = (bp.residuals, bp.nlconstraints, bp.jac_res, bp.jac_nlcons)
-    return _blocked_runner(fns_key, options, mesh)(poly, x0, theta)
+    return dispatch("blocked_solve", _blocked_runner(fns_key, options, mesh), poly, x0, theta)
 
 
 def solve_large_blocked_shardmap(
@@ -289,7 +291,7 @@ def solve_large_blocked_shardmap(
         # The matrix-free Hv/vhv forms also psum correctly via spmd_axis,
         # but the Gram operator pays one n² reduce per refresh instead of
         # one n-vector psum per CG iteration — the right trade at blocked
-        # scale (docs/SCALING.md).  Only the "auto" default is resolved:
+        # scale, where CG runs many iterations per refresh.  Only the "auto" default is resolved:
         # an explicit "off" (e.g. n so large even the n²/D sharded rows
         # don't fit HBM) stays matrix-free.
         gram_hessian="on" if options.gram_hessian == "auto" else options.gram_hessian,
@@ -347,9 +349,8 @@ def _blocked_runner(fns_key, options: SolverOptions, mesh: Mesh):
     """Cached jitted runner for the blocked-family solve.
 
     Re-jitting a fresh closure per call retraces the whole solver program
-    every solve — measured ~5 s of pure host-side tracing per config-4
-    call on top of a ~1 s device wall (the round-1 `jax.jit(run)(...)`
-    pattern).  Cache key = (family callables, options, mesh), mirroring
+    every solve — seconds of host-side tracing per config-4 call, more
+    than the device wall (the round-1 `jax.jit(run)(...)` pattern).  Cache key = (family callables, options, mesh), mirroring
     batch.vmap_solve._batched_runner.
     """
     residuals, nlconstraints, jac_res, jac_nlcons = fns_key

@@ -42,7 +42,7 @@ def print_tralcnllss_header(
     print("*" + " " * 62 + "*", file=io_)
     print("*" + " " * 23 + "benlsip_tpu v-DEV" + " " * 22 + "*", file=io_)
     print("*" + " " * 62 + "*", file=io_)
-    print("*              TPU-native TRALCNLLS (BEnlsip.jl capability)    *", file=io_)
+    print("*" + "Batched TRALCNLLS (BEnlsip.jl capability)".center(62) + "*", file=io_)
     print("*" + " " * 62 + "*", file=io_)
     print("*" * 64, file=io_)
     print("\nProblem dimensions", file=io_)

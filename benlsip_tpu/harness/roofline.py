@@ -1,34 +1,46 @@
-"""Roofline accounting: achieved FLOP/s and HBM bandwidth vs chip peaks.
+"""Roofline accounting: achieved FLOP/s and memory bandwidth vs device peaks.
 
-The BASELINE north star asks for the per-iteration QR/PCG step at
-"speed-of-light per chip"; this module makes that claim quantitative
-(round-1 VERDICT item 4: no MFU/roofline number existed anywhere).
-
-Peaks are the public TPU v5e (v5 lite) figures; pass your own `ChipPeaks`
-for other hardware.  f32 matmuls on the MXU run as bf16 passes:
-`matmul_precision="default"` is 1 pass, "highest" (the solver default —
-see SolverOptions.matmul_precision) uses 6 passes, so the *attainable*
-f32 peak under the solver's precision contract is peak_bf16/6.
+`PEAKS` holds one row per device, keyed by the `device_kind` JAX reports,
+with the dense (no sparsity) peak rate of each matmul precision and the
+memory bandwidth, from the vendor's data sheet.  A precision maps to its
+peak directly: "float32" is full f32 outside the tensor cores (what
+`matmul_precision="highest"`, the solver default, asks for), "tf32" is
+what `"default"` lets XLA use on the GPU.  A device that is not in the
+table is an error, not a default: a roofline share against the wrong
+peak is a wrong number.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
 
 @dataclasses.dataclass(frozen=True)
 class ChipPeaks:
     name: str
-    bf16_tflops: float       # MXU peak, bf16 inputs / f32 accumulate
-    hbm_gbps: float          # HBM bandwidth
-    f32_passes: int = 6      # bf16 passes per f32 matmul at "highest"
-
-    @property
-    def f32_highest_tflops(self) -> float:
-        return self.bf16_tflops / self.f32_passes
+    tflops: Mapping[str, float]   # precision -> dense peak TFLOP/s
+    hbm_gbps: float               # device-memory bandwidth, GB/s
+    source: str
 
 
-# Public v5e figures: 197 TFLOP/s bf16, 819 GB/s HBM.
-V5E = ChipPeaks(name="v5e", bf16_tflops=197.0, hbm_gbps=819.0)
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": ChipPeaks(
+        name="H100 SXM",
+        tflops={"float32": 67.0, "tf32": 495.0, "bfloat16": 989.0, "float64": 67.0},
+        hbm_gbps=3350.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM part, dense",
+    ),
+}
+
+
+def peaks_for(device_kind: str) -> ChipPeaks:
+    """The peak row of `device_kind` (`jax.Device.device_kind`)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak table row for device kind {device_kind!r}; known: {sorted(PEAKS)}"
+        ) from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +49,10 @@ class RooflineRow:
 
     phase: str
     flops: float             # executed FLOPs (analytic count)
-    bytes_moved: float       # HBM traffic (analytic count)
+    bytes_moved: float       # device-memory traffic (analytic count)
     wall_s: float
-    peaks: ChipPeaks = V5E
-    precision: str = "highest"   # "highest" -> f32 6-pass peak; "bf16" -> raw
+    peaks: ChipPeaks
+    precision: str = "float32"
 
     @property
     def tflops_achieved(self) -> float:
@@ -52,15 +64,11 @@ class RooflineRow:
 
     @property
     def peak_tflops(self) -> float:
-        return (
-            self.peaks.bf16_tflops
-            if self.precision == "bf16"
-            else self.peaks.f32_highest_tflops
-        )
+        return self.peaks.tflops[self.precision]
 
     @property
     def mfu(self) -> float:
-        """Fraction of the precision-adjusted matmul peak."""
+        """Fraction of the matmul peak at this row's precision."""
         return self.tflops_achieved / self.peak_tflops
 
     @property
@@ -73,7 +81,7 @@ class RooflineRow:
 
     @property
     def ridge_intensity(self) -> float:
-        """FLOP/byte at which this chip turns compute-bound."""
+        """FLOP/byte at which this device turns compute-bound."""
         return self.peak_tflops * 1e12 / (self.peaks.hbm_gbps * 1e9)
 
     @property
@@ -81,29 +89,29 @@ class RooflineRow:
         return "compute" if self.arithmetic_intensity >= self.ridge_intensity else "bandwidth"
 
     @property
-    def sol_frac(self) -> float:
-        """Speed-of-light fraction: achieved / min(compute, bandwidth) limit.
+    def floor_s(self) -> float:
+        """Least time the device could take: max(flops/peak, bytes/bandwidth)."""
+        return max(self.flops / (self.peak_tflops * 1e12),
+                   self.bytes_moved / (self.peaks.hbm_gbps * 1e9))
 
-        The roofline time floor is max(flops/peak_flops, bytes/peak_bw);
-        sol_frac = floor / wall — 1.0 means the kernel runs at the hardware
-        limit for its intensity.
-        """
-        t_comp = self.flops / (self.peak_tflops * 1e12)
-        t_bw = self.bytes_moved / (self.peaks.hbm_gbps * 1e9)
-        floor = max(t_comp, t_bw)
-        return floor / self.wall_s if self.wall_s else 0.0
+    @property
+    def sol_frac(self) -> float:
+        """Roofline share: `floor_s` / wall — 1.0 means the kernel runs at
+        the hardware limit for its intensity."""
+        return self.floor_s / self.wall_s if self.wall_s else 0.0
 
     def as_dict(self) -> dict:
         return {
             "phase": self.phase,
             "flops": self.flops,
             "bytes": self.bytes_moved,
-            "wall_s": round(self.wall_s, 6),
-            "tflops": round(self.tflops_achieved, 3),
-            "gbps": round(self.gbps_achieved, 1),
-            "mfu": round(self.mfu, 4),
-            "bw_util": round(self.bw_util, 4),
+            "wall_s": self.wall_s,
+            "tflops": self.tflops_achieved,
+            "gbps": self.gbps_achieved,
+            "mfu": self.mfu,
+            "bw_util": self.bw_util,
             "bound": self.bound,
-            "sol_frac": round(self.sol_frac, 4),
+            "sol_frac": self.sol_frac,
+            "precision": self.precision,
             "chip": self.peaks.name,
         }

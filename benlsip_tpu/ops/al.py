@@ -1,6 +1,6 @@
 """Augmented-Lagrangian evaluation and the matrix-free Gauss-Newton Hessian.
 
-TPU-native re-design of the reference's AL evaluation layer
+Re-design of the reference's AL evaluation layer
 (`/root/reference/src/basic_tralcnlss.jl:6-137`):
 
 * the augmented Lagrangian  m(x) = 1/2 rᵀr + yᵀc + mu/2 cᵀc   (ref :44)
@@ -36,7 +36,7 @@ class AlHessian(NamedTuple):
     Optionally carries the materialized Gram matrix G = JᵀJ + mu CᵀC
     (see `with_gram`): when the residual dimension d dominates n, every
     H·v otherwise streams the (d, n) Jacobian from HBM twice per CG
-    iteration; paying O(d n²) MXU flops once per Jacobian refresh buys an
+    iteration; paying O(d n²) GEMM flops once per Jacobian refresh buys an
     (n, n) operator whose per-iteration HBM traffic is ~2(d+p)/n times
     smaller — the dominant cost at config-3/4 scale where CG is
     bandwidth-bound, not flop-bound.
@@ -116,9 +116,9 @@ def with_gram(H: AlHessian, axis: str | None = None, Gj: Array | None = None) ->
     """
     jtj = _psum(H.J.T @ H.J, axis) if Gj is None else Gj.astype(H.J.dtype)
     # Static p==0 short-circuit: with no nonlinear constraints C is a
-    # (0, n) array and CᵀC a degenerate (n, n) zero dot — XLA spends >1 s
-    # constant-folding it per occurrence at highest precision (measured
-    # on the config-4 compile), for a term that is identically zero.
+    # (0, n) array and CᵀC a degenerate (n, n) zero dot — XLA can spend
+    # seconds constant-folding it per occurrence at highest precision,
+    # for a term that is identically zero.
     G = jtj if H.C.shape[0] == 0 else jtj + H.mu * (H.C.T @ H.C)
     return AlHessian(H.J, H.C, H.mu, G)
 
@@ -212,8 +212,7 @@ def with_r_factor(H: AlHessian) -> AlHessian:
     computed by QR, so no intermediate ever carries κ(S)².  Costs ~2-4x
     the Gram GEMM per Jacobian refresh (blocked Householder vs one
     matmul) — amortized over the CG iterations that reuse the operator.
-    Under vmap, small-column instances route to the Pallas MGS kernel
-    (ops/qr.py).
+    Under vmap, XLA batches the QR over instances (ops/qr.py).
     """
     dtype = H.J.dtype
     S = jnp.concatenate([H.J, jnp.sqrt(H.mu).astype(dtype) * H.C], axis=0)
@@ -230,10 +229,10 @@ def with_r_factor_cholqr2(
 ) -> AlHessian:
     """Materialize R with RᵀR = JᵀJ + mu CᵀC via CholeskyQR2 (ops/qr.cholqr2_r).
 
-    The TPU-shaped route to the orthogonal factor: three GEMM-class passes
-    (Gram build, right-triangular solve, refinement Gram) instead of XLA's
+    The GEMM-shaped route to the orthogonal factor: three GEMM-class passes
+    (Gram build, right-triangular solve, refinement Gram) instead of a
     panel-serialized Householder QR — the same accuracy class (κ·eps after
-    the second pass; any κ via the shift rescue) at the 97%-MFU kernel mix.
+    the second pass; any κ via the shift rescue).
 
     Unlike the Householder route this *distributes*: with J row-sharded
     over `axis` the Gram pass reduces (n, n) partials with the existing
@@ -315,7 +314,7 @@ def with_r_factor_cholqr2(
 def hv(H: AlHessian, v: Array, axis: str | None = None) -> Array:
     """Matrix-free H @ v = Jᵀ(Jv) + mu Cᵀ(Cv)  (ref `src/basic_tralcnlss.jl:102-106`).
 
-    Two GEMV pairs; under vmap these become batched GEMMs on the MXU, and in
+    Two GEMV pairs; under vmap these become batched GEMMs, and in
     the row-sharded large-instance mode the Jᵀ(Jv) contraction carries a psum
     (explicit via `axis` under shard_map, XLA-inserted under pjit).
     With a materialized Gram matrix (see `with_gram`), one (n,n) GEMV on the

@@ -1,6 +1,6 @@
 """Cholesky factorizations for masked active-set projections.
 
-TPU-native replacement for the reference's augmented-Cholesky machinery
+Replacement for the reference's augmented-Cholesky machinery
 (`/root/reference/src/polyhedral_constraints.jl:35-68`) and its LAPACK
 backend (dpotrf/dtrsm via Julia `cholesky` / `\\`).
 
@@ -33,24 +33,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-from jax.custom_batching import custom_vmap
 
 Array = jax.Array
 
-# The batch-on-lanes Pallas kernels win when the factor is small (fully
-# unrolled straight-line VPU code) and the batch is wide; above this size
-# XLA's blocked lowering is the right tool.
-_PALLAS_MAX_M = 16
-_PALLAS_DTYPES = (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
 _BF16 = jnp.dtype(jnp.bfloat16)
 
 
 def _chol_xla(K: Array) -> Array:
-    """bf16-safe XLA Cholesky: no backend ships a bf16 kernel (LAPACK on
-    CPU, the blocked lowering on TPU are f32/f64 only), so bf16 inputs
-    factor in f32 and round back — matching the Pallas kernels'
-    accumulation precision (the bf16-bulk pipeline's dtype story)."""
+    """bf16-safe Cholesky: no backend ships a bf16 factorization (LAPACK on
+    CPU, cuSOLVER on the GPU are f32/f64 only), so bf16 inputs factor in
+    f32 and round back (the bf16-bulk pipeline's dtype story).  Batch dims
+    broadcast natively, so `vmap` over instances is one batched call."""
     if K.dtype == _BF16:
         return jnp.linalg.cholesky(K.astype(jnp.float32)).astype(K.dtype)
     return jnp.linalg.cholesky(K)
@@ -65,67 +58,6 @@ def _tri_solve_xla(L: Array, b: Array, **kw) -> Array:
     return jax.scipy.linalg.solve_triangular(L, b, **kw)
 
 
-@custom_vmap
-def _chol_small(K: Array) -> Array:
-    """Single m×m SPD Cholesky; batching dispatches to the Pallas kernel.
-
-    This is where the reference's LAPACK dpotrf surface meets the TPU:
-    unbatched (or on CPU) it is XLA's `jnp.linalg.cholesky`; under `vmap`
-    over instances — the batched-small regime, where XLA lowers tiny
-    factorizations to scalar loops — the vmap rule routes to the
-    batch-on-lanes Pallas kernel (`kernels/batched_linalg.batched_cholesky`)
-    with the batch on the 128-wide vector lanes.
-    """
-    return _chol_xla(K)
-
-
-@_chol_small.def_vmap
-def _chol_small_vmap(axis_size, in_batched, K):
-    (kb,) = in_batched
-    if not kb:
-        K = jnp.broadcast_to(K, (axis_size,) + K.shape)
-    M = K.shape[-1]
-    if K.ndim == 3 and 0 < M <= _PALLAS_MAX_M and K.dtype in _PALLAS_DTYPES:
-        from ..kernels.batched_linalg import batched_cholesky
-
-        out = lax.platform_dependent(K, cpu=_chol_xla, default=batched_cholesky)
-    else:
-        out = _chol_xla(K)
-    return out, True
-
-
-@custom_vmap
-def _cho_solve_small(L: Array, b: Array) -> Array:
-    """Solve (L Lᵀ) x = b for one small factor; batching → Pallas kernel."""
-    y = _tri_solve_xla(L, b, lower=True)
-    return _tri_solve_xla(L.T, y, lower=False)
-
-
-@_cho_solve_small.def_vmap
-def _cho_solve_small_vmap(axis_size, in_batched, L, b):
-    lb, bb = in_batched
-    if not lb:
-        L = jnp.broadcast_to(L, (axis_size,) + L.shape)
-    if not bb:
-        b = jnp.broadcast_to(b, (axis_size,) + b.shape)
-    M = L.shape[-1]
-    if L.ndim == 3 and b.ndim == 2 and 0 < M <= _PALLAS_MAX_M and L.dtype in _PALLAS_DTYPES:
-        from ..kernels.batched_linalg import batched_cho_solve
-
-        def _xla(args):
-            L_, b_ = args
-            y = _tri_solve_xla(L_, b_[..., None], lower=True)
-            return _tri_solve_xla(jnp.swapaxes(L_, -1, -2), y, lower=False)[..., 0]
-
-        out = lax.platform_dependent(
-            (L, b), cpu=_xla, default=lambda args: batched_cho_solve(*args)
-        )
-    else:
-        y = _tri_solve_xla(L, b[..., None], lower=True)
-        out = _tri_solve_xla(jnp.swapaxes(L, -1, -2), y, lower=False)[..., 0]
-    return out, True
-
-
 def masked_aat(A: Array, free: Array) -> Array:
     """A Z Aᵀ with Z = diag(free). Shape (m, m)."""
     Af = A * free.astype(A.dtype)[None, :]
@@ -137,8 +69,9 @@ def factor_masked_aat(A: Array, free: Array, reg: float = 0.0) -> Array:
 
     Fixed-shape replacement for `cholesky_aug_aat` + `update_chol!`
     (ref `src/polyhedral_constraints.jl:35-68`).  m is small in the batched
-    regime (m ≤ n ≤ ~20), so the O(m²n) re-formation + O(m³) factorization is
-    cheaper on TPU than a data-dependent incremental update would be.
+    regime (m ≤ n ≤ ~20), so the O(m²n) re-formation + O(m³) factorization
+    under a fixed shape beats a data-dependent incremental update, which
+    would not batch.
 
     reg > 0 adds Tikhonov jitter for near-rank-deficient masked rows; the
     reference simply crashes in that case (LAPACK PosDefException).
@@ -149,7 +82,7 @@ def factor_masked_aat(A: Array, free: Array, reg: float = 0.0) -> Array:
     K = masked_aat(A, free)
     if reg:
         K = K + jnp.asarray(reg, A.dtype) * jnp.eye(m, dtype=A.dtype)
-    return _chol_small(K)
+    return _chol_xla(K)
 
 
 def cho_solve_lower(L: Array, b: Array) -> Array:
@@ -157,12 +90,8 @@ def cho_solve_lower(L: Array, b: Array) -> Array:
 
     The reference's pair of triangular solves `chol.L \\ b; chol.U \\ v`
     (e.g. ref `src/basic_tralcnlss.jl:897-901`,
-    `src/polyhedral_constraints.jl:114-116`).  Vector right-hand sides go
-    through the custom-vmap wrapper so instance batches hit the Pallas
-    batched forward/backward substitution kernel on TPU.
+    `src/polyhedral_constraints.jl:114-116`).
     """
-    if b.ndim == 1:
-        return _cho_solve_small(L, b)
     y = _tri_solve_xla(L, b, lower=True)
     return _tri_solve_xla(L.T, y, lower=False)
 

@@ -1,6 +1,6 @@
 """Polyhedral constraint set and masked active-set machinery.
 
-TPU-native re-design of the reference's `MixedConstraints`
+Re-design of the reference's `MixedConstraints`
 (`/root/reference/src/polyhedral_constraints.jl:1-31, 203-262`).
 
 The reference mutates a `BitVector fixvars` and incrementally refactorizes a

@@ -31,15 +31,22 @@ _tried = False
 
 
 def _build() -> bool:
+    # Build to a private file, then rename: processes that build at once
+    # (test workers) never load a half-written library.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
+            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
         )
+        os.replace(tmp, _LIB)
         return True
     except (OSError, subprocess.CalledProcessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -71,7 +71,7 @@ def projection_polyhedron(
     the per-TR-iteration criticality measure — converge in 1-2 Newton steps
     warm vs ~5-15 cold).  A STALE warm start can park the damped Newton at
     the dual-residual floor of the wrong face (the round-3 root cause of
-    the ~20× criticality slowdown that forced cold starts): the stall
+    the criticality slowdown that forced cold starts): the stall
     detector now spends its first trigger on an in-loop COLD RESTART
     (lam ← 0) instead of exiting, so a bad warm start costs ~4 stalled
     steps + the cold solve, and a good one keeps the 1-2-step fast path.
@@ -208,7 +208,7 @@ def projection_polyhedron(
         # q ~ O(‖v-x‖²) (e.g. 1e-19 vs 1e-16 rounding noise at f64), so the
         # pure q-comparison rejects the final contraction steps and a
         # near-converged (warm) start churns at stall until the cold
-        # restart — the round-3 ~20× warm-start slowdown.  ‖F‖ decrease is
+        # restart — the round-3 warm-start slowdown.  ‖F‖ decrease is
         # the sound acceptance signal in exactly that regime.
         lam_try = lam + t_star * dlam
         fn_try = jnp.linalg.norm(F_of(lam_try))

@@ -1,6 +1,6 @@
 """Masked nullspace/subspace projections onto active linear constraints.
 
-TPU-native re-design of the reference's projection layer
+Re-design of the reference's projection layer
 (`/root/reference/src/polyhedral_constraints.jl:72-170`): projection of a
 vector r onto the tangent set
 

@@ -1,117 +1,52 @@
 """QR factorizations for the Gauss-Newton algebra.
 
-TPU-native replacement for the half of the reference's LAPACK surface the
+Replacement for the half of the reference's LAPACK surface the
 normal equations hide: the reference factorizes CCᵀ (Cholesky) for the
 least-squares multipliers (`/root/reference/src/basic_tralcnlss.jl:897-901`)
 and applies JᵀJ + mu·CᵀC matrix-free everywhere else — both of which square
-the Jacobian's condition number.  On TPU the f32 bulk phase of the
+the Jacobian's condition number.  The f32 bulk phase of the
 mixed-precision pipeline has no κ² headroom (see SolverOptions), so the
 framework offers the orthogonal route: thin QR of the stacked factor, with
 R replacing the Gram matrix (RᵀR = SᵀS exactly, but R is accurate to
 κ(S)·eps instead of κ(S)²·eps).
 
-Dispatch follows ops/cholesky.py: unbatched (or on CPU) these are XLA's
-blocked-Householder `jnp.linalg.qr`; under `vmap` over instances with a
-small column count, the vmap rule routes to the batch-on-lanes Pallas MGS
-kernel (`kernels/batched_linalg.batched_thin_qr`) whose per-instance work
-is straight-line VPU code with the batch on the 128-wide lanes.
+Batch dims broadcast natively through XLA's `jnp.linalg.qr`, so `vmap`
+over instances is one batched factorization.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.custom_batching import custom_vmap
 
 Array = jax.Array
-
-# The MGS kernel fully unrolls the N(N+1)/2 column updates; beyond this
-# column count XLA's blocked Householder lowering is the right tool.  The
-# row (D) bound keeps the (N, D, block) VMEM slab within budget.
-_PALLAS_MAX_N = 16
-_PALLAS_MAX_D = 2048
-_PALLAS_DTYPES = (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
-
-
-def _pallas_eligible(shape, dtype) -> bool:
-    if len(shape) != 3:
-        return False
-    _, D, N = shape
-    return 0 < N <= _PALLAS_MAX_N and N <= D <= _PALLAS_MAX_D and jnp.dtype(dtype) in _PALLAS_DTYPES
 
 
 def _xla_qr(S: Array, mode: str):
     """jnp.linalg.qr with bf16 handled by an f32 round trip.
 
-    No backend ships a bf16 QR kernel (LAPACK on CPU, the Householder
-    lowering on TPU are f32/f64 only) — a bf16 input crashes at trace time.
-    Computing in f32 and rounding back matches the Pallas MGS kernel's
-    accumulation precision.
+    No backend ships a bf16 QR kernel (LAPACK on CPU, cuSOLVER on the GPU
+    are f32/f64 only) — a bf16 input crashes at trace time.
     """
     S32 = S.astype(jnp.float32) if S.dtype == jnp.dtype(jnp.bfloat16) else S
     out = jnp.linalg.qr(S32, mode=mode)
     if mode == "r":
         return out.astype(S.dtype)
-    # Plain tuple, not the QRResult NamedTuple: the Pallas branch of
-    # lax.platform_dependent returns a tuple and pytree structures must match.
     return out[0].astype(S.dtype), out[1].astype(S.dtype)
 
 
-@custom_vmap
 def thin_qr(S: Array):
-    """Thin QR of one (D, N) matrix -> (Q (D, K), R (K, N)), K = min(D, N).
-
-    Batching over instances dispatches to the Pallas MGS kernel when the
-    column count is small (the batched-small regime: N = p or n ≤ ~16).
-    """
-    q, r = _xla_qr(S, "reduced")
-    return q, r
+    """Thin QR of a (..., D, N) matrix -> (Q (..., D, K), R (..., K, N)),
+    K = min(D, N)."""
+    return _xla_qr(S, "reduced")
 
 
-@thin_qr.def_vmap
-def _thin_qr_vmap(axis_size, in_batched, S):
-    (sb,) = in_batched
-    if not sb:
-        S = jnp.broadcast_to(S, (axis_size,) + S.shape)
-    if _pallas_eligible(S.shape, S.dtype):
-        from ..kernels.batched_linalg import batched_thin_qr
-
-        def _xla(a):
-            return _xla_qr(a, "reduced")
-
-        out = lax.platform_dependent(S, cpu=_xla, default=batched_thin_qr)
-    else:
-        out = _xla_qr(S, "reduced")
-    return out, (True, True)
-
-
-@custom_vmap
 def qr_r(S: Array) -> Array:
-    """R factor only of one (D, N) matrix -> (K, N), K = min(D, N).
+    """R factor only of a (..., D, N) matrix -> (..., K, N), K = min(D, N).
 
     RᵀR = SᵀS: the orthogonal-factorization route to the Gram operator.
-    Batched small-N instances hit the Pallas kernel (Q discarded — the MGS
-    kernel materializes it in VMEM anyway; the HBM write is what's saved).
     """
     return _xla_qr(S, "r")
-
-
-@qr_r.def_vmap
-def _qr_r_vmap(axis_size, in_batched, S):
-    (sb,) = in_batched
-    if not sb:
-        S = jnp.broadcast_to(S, (axis_size,) + S.shape)
-    if _pallas_eligible(S.shape, S.dtype):
-        from ..kernels.batched_linalg import batched_thin_qr
-
-        out = lax.platform_dependent(
-            S,
-            cpu=lambda a: _xla_qr(a, "r"),
-            default=lambda a: batched_thin_qr(a)[1],
-        )
-    else:
-        out = _xla_qr(S, "r")
-    return out, True
 
 
 def _chol_upper(G: Array) -> Array:
@@ -142,11 +77,10 @@ def _rescued_chol_upper(G: Array) -> Array:
 
 
 def cholqr2_r(S: Array) -> Array:
-    """R factor of S via CholeskyQR2 — the MXU-shaped thin QR.
+    """R factor of S via CholeskyQR2 — the GEMM-shaped thin QR.
 
-    XLA's blocked-Householder QR serializes on its panel factorizations
-    (measured 27% of peak at config-4 shapes); CholeskyQR2 replaces it
-    with three GEMM-class passes that run in the 97%-MFU kernel class:
+    Blocked-Householder QR serializes on its panel factorizations;
+    CholeskyQR2 replaces it with three GEMM-class passes:
 
         G  = SᵀS;  R₁ = chol(G)          (one (d,n)×(n,n) GEMM + small chol)
         W  = S R₁⁻¹                       (triangular solve, GEMM-shaped)
@@ -157,9 +91,8 @@ def cholqr2_r(S: Array) -> Array:
     RᵀR = SᵀS to working precision; the implicit Q = W R₂⁻¹ is never
     formed (the solver consumes R only, ops/al.with_r_factor).  Valid for
     any κ via the shift rescue in `_rescued_chol_upper`.  Batch dims
-    broadcast natively (no custom_vmap needed: every op is batched GEMM /
-    batched chol, already the right TPU shape).  bf16 inputs compute in
-    f32 like `_xla_qr`.
+    broadcast natively (every op is a batched GEMM or batched chol).
+    bf16 inputs compute in f32 like `_xla_qr`.
 
     Replaces the same LAPACK factorization surface as `qr_r`
     (ref `/root/reference/src/basic_tralcnlss.jl:206, 897-901`).
@@ -197,10 +130,9 @@ def _implicit_refine_upper(G: Array, R1: Array) -> Array:
     The explicit refinement pass re-touches S twice (W = S R₁⁻¹, G₂ = WᵀW:
     3dn² FLOPs).  But in exact arithmetic G₂ = R₁⁻ᵀ G R₁⁻¹ — computable
     from the (n, n) Gram alone with two triangular solves (2n³ FLOPs, no S
-    traffic).  Measured at config-4 shape (n=4096, d=16384, f32, chip):
-    1.4× faster than the explicit pass, and in the row-sharded build the
-    second psum of an (n, n) partial disappears — the refinement is purely
-    local once G is reduced.
+    traffic).  At config-4 shapes (d ≥ 2n) that is the cheaper pass, and
+    in the row-sharded build the second psum of an (n, n) partial
+    disappears — the refinement is purely local once G is reduced.
 
     Robustness differs from the explicit pass in one way: explicit G₂=WᵀW
     is a Gram, PSD by construction at any κ; the implicit congruence goes

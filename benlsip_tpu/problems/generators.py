@@ -119,7 +119,7 @@ def dense_quadratic_family(
     """Medium dense linear-least-squares family with polyhedral constraints
     (BASELINE config 3 shape): r(x) = J x - y with shared random J, per-
     instance targets, linear equalities Ax=b and active-at-solution bounds,
-    exercising the projection/active-set path at MXU-friendly sizes.
+    exercising the projection/active-set path at GEMM-friendly sizes.
     """
     rng = np.random.default_rng(seed)
     J = rng.standard_normal((d, n)) / np.sqrt(d)

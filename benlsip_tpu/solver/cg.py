@@ -1,6 +1,6 @@
 """Projected conjugate gradients on the active-set tangent space.
 
-TPU-native re-design of `projected_cg` / `factor_to_boundary` / `linesearch`
+Re-design of `projected_cg` / `factor_to_boundary` / `linesearch`
 (`/root/reference/src/basic_tralcnlss.jl:690-809`): approximately solve
 
     min_w 1/2 wᵀHw + wᵀg    s.t.  A w = 0,  w_i = 0 (i fixed),  w_l ≤ w ≤ w_u
@@ -106,8 +106,7 @@ def projected_cg(
 
     Returns (w, status, iters) with status one of the CG_* codes and
     iters the number of interior CG updates performed (observability:
-    the per-TR-iteration trip counts that set the wall, docs/SCALING.md
-    MFU section).
+    the per-TR-iteration trip counts that set the wall).
     """
     dtype = g_minor.dtype
     if atol is None:

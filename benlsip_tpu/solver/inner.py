@@ -1,6 +1,6 @@
 """Inner step: gradient-projection Cauchy search + active-set minor iterations.
 
-TPU-native re-design of `inner_step` / `cauchy_step` / `next_breakpoint` /
+Re-design of `inner_step` / `cauchy_step` / `next_breakpoint` /
 `minor_iterate` (`/root/reference/src/basic_tralcnlss.jl:394-675`).
 
 The reference walks breakpoints of the projected-gradient path with a
@@ -42,8 +42,7 @@ def next_breakpoint(
     """Smallest theta with a free component of s + theta·d at a bound.
 
     Vectorized `next_breakpoint` (ref `src/basic_tralcnlss.jl:536-562`):
-    the O(n) scalar scan becomes a masked elementwise minimum + argmin on
-    the VPU.  Returns (theta, index); theta = +inf when no free direction
+    the O(n) scalar scan becomes a masked elementwise minimum + argmin.  Returns (theta, index); theta = +inf when no free direction
     moves (the reference returns ind = -1 then).
     """
     theta_i = jnp.where(
@@ -285,7 +284,8 @@ class _MinorCarry(NamedTuple):
 
 
 class InnerStats(NamedTuple):
-    """Trip counts of one inner step (observability; see docs/SCALING.md)."""
+    """Trip counts of one inner step (observability: the lockstep trip
+    counts that set a batched chunk's wall)."""
 
     minor_iters: Array
     cg_iters: Array

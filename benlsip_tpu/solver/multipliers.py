@@ -24,8 +24,8 @@ def least_squares_multipliers(
 
     method="normal" is the reference's algebra — Cholesky of CCᵀ, i.e.
     y = -(CCᵀ)⁻¹ C (Jᵀ r) — which squares κ(C).  method="qr" (default;
-    SolverOptions.gn_factorization) factors Cᵀ = QR (thin, p columns —
-    the Pallas MGS kernel's design point under vmap) and solves the
+    SolverOptions.gn_factorization) factors Cᵀ = QR (thin, p columns)
+    and solves the
     triangular system R y = -Qᵀ(Jᵀ r): identical solution, κ(C)-accurate.
     """
     from ..ops.al import _psum

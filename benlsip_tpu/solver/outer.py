@@ -1,6 +1,6 @@
 """Outer augmented-Lagrangian driver: penalty/multiplier/tolerance schedule.
 
-TPU-native re-design of the `tralcnllss` body
+Re-design of the `tralcnllss` body
 (`/root/reference/src/basic_tralcnlss.jl:167-298`): LANCELOT-style outer
 loop — solve the TR subproblem to tolerance omega; if the subproblem iterate
 is feasible enough (‖c‖ ≤ eta) accept it, update multipliers y ← y + mu·c
@@ -259,9 +259,10 @@ def solve_fixed_point(
     opts = opts.resolve_tols(jnp.dtype(dtype))
     atol = default_atol(dtype)
 
-    # Trace the whole iteration under the configured matmul precision: the
-    # TPU MXU's default f32 path is bf16-precision and Gauss-Newton cannot
-    # converge on it for medium instances (see SolverOptions.matmul_precision).
+    # Trace the whole iteration under the configured matmul precision: an
+    # accelerator's default f32 product is reduced-precision (TF32 on the
+    # GPU) and Gauss-Newton cannot converge on it for medium instances
+    # (see SolverOptions.matmul_precision).
     with jax.default_matmul_precision(opts.matmul_precision):
         c0 = outer_init(fns, poly, x0, opts, y0)
         # Constant-J problems: one J^T J GEMM for the whole solve

@@ -6,7 +6,7 @@ projected CG on a quadratic over Ax = b); the live package never exposes
 it.  Sign convention: this module minimizes ½xᵀQx + cᵀx, while the
 reference's `solve_quadratic` minimizes ½xᵀHx − cᵀx — anyone porting a
 reference call site must pass `-c` here.  VERDICT r3 listed it as the one "observation"-grade gap, so
-the rebuild provides the surface TPU-first:
+the rebuild provides the surface, jittable first:
 
 * `solve_qp` — equality constraints only: one jittable program (feasible
   point by a min-norm correction + projected CG on the tangent space,

@@ -1,6 +1,6 @@
 """Trust-region subproblem solver (the AL minimization over the polyhedron).
 
-TPU-native re-design of `solve_subproblem` + TR radius control
+Re-design of `solve_subproblem` + TR radius control
 (`/root/reference/src/basic_tralcnlss.jl:303-378, 817-860`): approximately
 minimize the augmented Lagrangian over {Ax=b, xl ≤ x ≤ xu} to criticality
 tolerance omega, via trust-region steps from `inner_step`.
@@ -72,7 +72,7 @@ def criticality_measure(poly: Polyhedron, x: Array, g: Array, lam0: Array | None
     iteration's multipliers (the point moves slowly, so warm converges in
     1-2 steps vs ~5-15 cold).  Round 3 cold-started on purpose — a stale
     warm dual parked the damped Newton at the f32 residual floor of the
-    wrong face and spun it to its cap (~20x slower than cold); the
+    wrong face and spun it to its iteration cap; the
     projection's in-loop cold-restart rescue (ops/polyproject.py) removes
     that failure mode, so warm is now never worse than ~4 stalled steps +
     the cold solve.  Returns (pi, lam) so callers can thread the dual."""
@@ -123,10 +123,9 @@ def resolve_operator_route(opts: SolverOptions, n: int, d_plus_p: int, dtype):
     if fact == "auto":
         if jnp.dtype(dtype) in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16)):
             # κ² eats the f32/bf16 budget → orthogonal route.  At large n
-            # (or distributed) the GEMM-shaped CholeskyQR2 replaces XLA's
-            # panel-serialized Householder (measured 27% of peak at
-            # config-4 shapes); small batched instances keep the Pallas
-            # MGS path behind `qr_r`.
+            # (or distributed) the GEMM-shaped CholeskyQR2 replaces the
+            # panel-serialized Householder; small batched instances keep
+            # the batched Householder behind `qr_r`.
             fact = "cholqr2" if (ax is not None or n >= 64) else "qr"
         else:
             fact = "normal"

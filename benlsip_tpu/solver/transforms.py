@@ -11,7 +11,7 @@ machinery with zero solver changes:
     G x ≥ h         →   G x − t = h,    t ≥ 0      (linear, slack t)
 
 The lifted variable z = [x; s; t] keeps every structural property the
-TPU design relies on: static shapes (q and ℓ are fixed), the polyhedron
+batched design relies on: static shapes (q and ℓ are fixed), the polyhedron
 stays {A_z z = b_z, l ≤ z ≤ u} (slack bounds are just more box bounds for
 the existing masked active-set machinery), and the Jacobian blocks are
 zero-padded — XLA fuses the padding away.  Slack columns add q+ℓ to n;

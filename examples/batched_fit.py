@@ -2,7 +2,7 @@
 
 Each instance fits y ≈ a·exp(-b t) + c with bounds and a pinned intercept
 (a + c = y(0), a per-instance linear equality).  The f32 bulk phase runs on
-the default device (TPU when available); the f64 refinement certifies
+the default device (the GPU when there is one); the f64 refinement certifies
 every fit to the 1.5e-8 KKT tolerance.  Run: python examples/batched_fit.py
 """
 import pathlib

@@ -1,15 +1,13 @@
 """Multi-host sweep recipe: config-5 at pod scale.
 
 Each host solves chunks of its OWN batch shard as independent programs
-(the per-shard-exit execution model, docs/SCALING.md DP section): no
-collective ever crosses DCN, so N-host efficiency is bounded only by the
-spread of per-host chunk-wall sums — measured 0.91 mean/max on the real
-2-process run (tests/test_multihost.py), with the OS-contention term
-absent on real pod hosts.
+(the per-shard-exit execution model): no collective ever crosses hosts,
+so N-host efficiency is bounded only by the spread of per-host chunk-wall
+sums (tests/test_multihost.py runs it with two CPU processes).
 
-On a TPU pod each host runs THIS script unmodified (`jax.distributed`
-discovers the coordinator from the TPU environment); for a local
-rehearsal, launch N processes with explicit coordinator args, e.g.:
+Under a cluster launcher that `jax.distributed` can discover (SLURM, Open
+MPI) each host runs THIS script unmodified; otherwise launch N processes
+with explicit coordinator args, e.g.:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \
       python examples/multihost_sweep.py --pid 0 --nprocs 2 &
@@ -46,8 +44,8 @@ args = ap.parse_args()
 # phase depend on it in both modes.
 jax.config.update("jax_enable_x64", True)
 if args.pid is not None:
-    # Local rehearsal: explicit coordinator.  On a pod, call with no args —
-    # jax.distributed.initialize() discovers everything from the TPU env.
+    # Explicit coordinator.  Under a cluster launcher, call with no args —
+    # jax.distributed.initialize() discovers the cluster itself.
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(
         coordinator_address=f"127.0.0.1:{args.port}",
@@ -55,7 +53,7 @@ if args.pid is not None:
         process_id=args.pid,
     )
 else:
-    jax.distributed.initialize()  # pod environment discovery
+    jax.distributed.initialize()  # cluster-launcher discovery
 
 import jax.numpy as jnp
 

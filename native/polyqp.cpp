@@ -3,7 +3,7 @@
 // Role: the reference outsources exact projection onto {v | Av=b, l<=v<=u}
 // to Ipopt (C++ interior point) through JuMP
 // (/root/reference/src/polyhedral_constraints.jl:179-198) and uses it as the
-// ground-truth oracle in its tests.  This file is the TPU build's native
+// ground-truth oracle in its tests.  This file is the rebuild's native
 // equivalent: a dependency-free dense dual solver for the same QP,
 //
 //     min_v 1/2 ||v - x||^2   s.t.  A v = b,  l <= v <= u,

@@ -1,8 +1,8 @@
 """Worker for the 2-process sweep-efficiency measurement (VERDICT r2 #5).
 
 Config-5's multi-host execution model: each host solves chunks of its OWN
-local batch shard as independent programs (the per-shard exit path —
-docs/SCALING.md DP section), so the N-host efficiency loss is the spread
+local batch shard as independent programs (the per-shard exit path), so
+the N-host efficiency loss is the spread
 of chunk walls across hosts, not communication.  This worker measures that
 spread for real: it initializes the 2-process jax.distributed runtime
 (bring-up parity with a pod), takes its process's slice of the config-5

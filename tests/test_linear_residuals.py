@@ -2,8 +2,8 @@
 
 For affine residuals r(x) = Jx - y the subproblem computes the JᵀJ Gram
 block once (ops/al.gram_j) and every per-acceptance refresh rebuilds only
-mu·CᵀC + the factorization — profiler-measured, the 2dn² refresh GEMM is
-88% of config-4 device time (docs/SCALING.md).  These tests pin exact
+mu·CᵀC + the factorization — the 2dn² refresh GEMM is the largest device
+cost of a config-4-shaped solve.  These tests pin exact
 (bitwise-irrelevant, allclose-tight) parity between the cached and
 uncached paths across the operator routes, single and sharded.
 

@@ -82,8 +82,7 @@ def test_two_process_sweep_efficiency():
     """Measured (not modeled) N-host efficiency for the config-5 execution
     shape (VERDICT r2 #5): each process solves its local shard's chunks as
     independent programs; efficiency = mean(total wall)/max(total wall)
-    across processes.  docs/SCALING.md predicts the only loss term is
-    chunk-wall spread; with an iid workload split evenly the spread should
+    across processes.  The only predicted loss term is chunk-wall spread; with an iid workload split evenly the spread should
     be modest even on a contended 2-core host."""
     reports = run_mh_sweep()
     totals = [r["total_wall_s"] for r in reports]

@@ -216,7 +216,7 @@ def test_fused_polish_parity_with_plain():
 
 
 def test_bulk_matmul_precision_knob_end_to_end():
-    """bulk_matmul_precision="default" (cheaper MXU passes) still certifies
+    """bulk_matmul_precision="default" (TF32 products on the GPU) still certifies
     through the pipeline — wrong bulk answers cost fallback time, never
     accuracy (on CPU the knob is a no-op numerically; this pins the
     plumbing end-to-end)."""

@@ -35,8 +35,8 @@ def test_thin_qr_matches_numpy():
 
 
 def test_thin_qr_vmap_parity():
-    # The custom-vmap rule (which routes to the Pallas kernel on TPU and
-    # XLA on CPU) must agree with a per-instance loop.
+    # The batched factorization XLA runs under vmap must agree with a
+    # per-instance loop.
     rng = np.random.default_rng(1)
     S = jnp.asarray(rng.standard_normal((7, 16, 3)))
     Qb, Rb = jax.vmap(thin_qr)(S)
@@ -166,8 +166,8 @@ def test_split_polish_qr_beats_lu_ill_conditioned():
 
 
 def test_qr_bf16_batched_cpu_fallback():
-    """bf16 is Pallas-eligible but no backend has a bf16 QR kernel: the XLA
-    fallback paths must round-trip through f32 instead of crashing."""
+    """No backend has a bf16 QR kernel: the batched paths must round-trip
+    through f32 instead of crashing."""
     import numpy as np
 
     from benlsip_tpu.ops.qr import qr_r, thin_qr
@@ -181,6 +181,6 @@ def test_qr_bf16_batched_cpu_fallback():
     StS = jnp.einsum("bdi,bdj->bij", S.astype(jnp.float32), S.astype(jnp.float32))
     RtR = jnp.einsum("bki,bkj->bij", R.astype(jnp.float32), R.astype(jnp.float32))
     np.testing.assert_allclose(np.asarray(RtR), np.asarray(StS), rtol=0.1, atol=0.1)
-    # Large-N (non-Pallas) branch.
+    # Large N.
     S2 = jnp.asarray(rng.standard_normal((2, 64, 32)), jnp.bfloat16)
     assert jax.vmap(qr_r)(S2).shape == (2, 32, 32)
